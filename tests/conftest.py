@@ -10,6 +10,8 @@ import pytest
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: subprocess compile tests (~20s each)")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (skips without one)")
 
 
 # Every XLA:CPU-compiled executable holds ~50 memory mappings (LLVM JIT
